@@ -3,7 +3,7 @@
 //
 // Role: the reference pipeline's performance-critical native surface was
 // OpenCV C++ (warps, blurs) plus LAPACK (ridge solves). pdx's compute path is
-// JAX/XLA/Pallas on TPU; this library is the host-native counterpart used as
+// JAX/XLA on the GPU; this library is the host-native counterpart used as
 //   1. an independent oracle for parity tests (no NumPy/JAX code shared), and
 //   2. a dependency-free CPU fallback for host-side preprocessing.
 //

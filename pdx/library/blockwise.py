@@ -5,7 +5,7 @@ Parity: ``build_blockwise_dataset`` (ks2d_stridge_benchmark.py:358-401):
 average u_t and every library term over (block_t x block_x x block_y)
 spatiotemporal blocks.
 
-TPU-first: the reference's triple Python loop with np.mean per term becomes a
+Batched: the reference's triple Python loop with np.mean per term becomes a
 single pad-to-multiple + reshape + mean over block axes for the whole
 (p, T, H, W) term stack at once. Ragged tail blocks (when a dimension is not
 divisible by the block size) are handled by mean-over-valid via a count

@@ -9,7 +9,7 @@ Parity targets:
   * 13-term registration-study library
     (pde_discovery_improved_registration.py:411-424).
 
-TPU-first: derivatives are computed for the whole (T, H, W) stack in one call
+Batched: derivatives are computed for the whole (T, H, W) stack in one call
 (roll stencils / batched FFT) — no per-frame loops — and terms are returned as
 one stacked array ready for the Gram GEMM.
 """

@@ -5,7 +5,7 @@ Parity: _poly3d_exponents / _poly3d_design / local_poly_derivatives
 over a (2rt+1) x (2rs+1) x (2rs+1) neighborhood by least squares and read
 (u, u_t, u_x, u_y, u_xx, u_yy) from the coefficients.
 
-TPU-native insight: the design matrix A depends only on the (fixed) offset
+Key idea: the design matrix A depends only on the (fixed) offset
 grid, never on the point — the reference recomputes A and calls lstsq per
 sample point (thousands of LAPACK calls); here the extraction operator
 E = S @ pinv(A) is computed once on the host and every point's derivatives are

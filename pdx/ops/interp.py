@@ -1,6 +1,6 @@
 """Gather-based bilinear sampling, warping, and resizing (device-side).
 
-TPU-native replacements for the OpenCV C++ primitives the reference leans on:
+Device replacements for the OpenCV C++ primitives the reference leans on:
 ``cv2.warpAffine`` (INTER_LINEAR, BORDER_WRAP) used for subpixel shifts
 (``ks2d_stridge_benchmark.py:785-798``), ``cv2.remap`` with reflect border
 used for dense-flow warping (``pde_discovery_improved_registration.py:88-97``),
@@ -29,26 +29,28 @@ def _gather2d(f: Array, ix: Array, iy: Array) -> Array:
 
 
 # ---------------------------------------------------------------------------
-# Banded-matrix lowering of separable kernels (MXU path)
+# Banded-matrix lowering of separable kernels
 #
 # A 1-D correlation with symmetric-reflect padding is a linear map, so it IS
-# an (L, L) banded matrix with the reflection folded into the band ends. On
-# TPU one (L, L) matmul per axis rides the MXU and reads the operand ONCE,
-# where the shifted-add formulation issues `taps` vector ops per axis —
-# op-count-bound on the VPU. On a single-core CPU the opposite holds (the
+# an (L, L) banded matrix with the reflection folded into the band ends. One
+# (L, L) matmul per axis reads the operand ONCE, where the shifted-add
+# formulation issues `taps` vector ops per axis; the matmul was the faster
+# choice on the accelerator this policy was tuned for (inherited tuning, not
+# yet measured on the H100). On a single-core CPU the opposite holds (the
 # matmul does L x more FLOPs than the adds), so the choice is made at trace
 # time per backend. PDX_SEP_IMPL=banded|shift overrides for A/B and tests.
 # ---------------------------------------------------------------------------
 
 
-# banded-sep einsum precision: import pdx pins the GLOBAL matmul precision
-# to `highest` (6-pass f32 — required for Gram-based coefficient recovery),
-# but image-smoothing kernels only need ~f32 fidelity: HIGH (bf16_3x) halves
-# the MXU passes with ~1e-6 relative error on 15-tap kernels
-_SEP_PREC = jax.lax.Precision.HIGH
+# banded-sep einsum precision. The banded lowering must agree with the
+# float64 shifted-add filter to float32 rounding (1e-6 relative). On the
+# H100, HIGH runs the matmuls at TF32-class precision: a sigma=1 Gaussian
+# over 51x512x640 frames was off by 5.6e-4 relative (HIGHEST: 2.3e-7), for
+# 0.32 ms instead of 0.99 ms per pass. HIGHEST it is.
+_SEP_PREC = jax.lax.Precision.HIGHEST
 
 
-def use_mxu_sep() -> bool:
+def use_banded_sep() -> bool:
     """Trace-time policy: lower separable passes as banded matmuls?"""
     impl = os.environ.get("PDX_SEP_IMPL")
     if impl:
@@ -159,30 +161,26 @@ def bilinear_sample_reflect(f: Array, x: Array, y: Array) -> Array:
 
 
 def _gather2d_rowfold_batch(f: Array, ix: Array, iy: Array) -> Array:
-    """Per-batch-element 2-D gather, lowered to the chip-measured winner.
+    """Per-batch-element 2-D gather.
 
     ``f`` is (B, H, W) or (C, B, H, W) — channel axis FIRST in the batched
     form; ``ix``/``iy`` are integer (B, h, w) index arrays that DIFFER per
-    batch element. Every candidate batched formulation was A/B'd on the
-    v5e (tools/gather_bench.py, battery_20260818T120920Z/gather_bench.json,
-    B=8 512x640):
+    batch element. The lowering was chosen by A/B on the accelerator it was
+    first tuned for (inherited tuning, not yet measured on the H100):
 
-      * (B, H, W): flat 1-D ``jnp.take`` with precomputed linear indices —
-        20.7 ms vs 28.3 ms for the row-folded 2-index gather.
+      * (B, H, W): flat 1-D ``jnp.take`` with precomputed linear indices,
+        faster than the row-folded 2-index gather.
       * (C, B, H, W): CHANNEL-LAST row-take — transpose the operand to
         (B, H, W, C), flatten the leading three axes, and ``take`` whole
-        C-vectors per pixel index (14.6 ms at C=5 vs 153.4 ms row-folded /
-        114.4 ms flat-take-channel-first, ~10x). TPU gather cost is
-        index-count-bound: one index fetching a contiguous C-vector beats C
-        scalar-indexed fetches, and the layout transpose is free (the
-        pre-transposed variant measured 14.5 ms).
+        C-vectors per pixel index (~10x faster than row-folded or
+        channel-first takes there): one index fetching a contiguous
+        C-vector beat C scalar-indexed fetches.
 
     Two older formulations stay documented as known-bad: ``vmap`` of
-    ``f[ix, iy]`` lowers to a gather with batching dimensions (the
-    pathological 100-400x XLA:TPU path, round-2 notes), and one giant
-    flat take over (B, C, H, W) operands materializes multi-GB s32 index
-    tensors (the 27.5 GB patch-grid OOM,
-    battery_20260817T192554Z/flow_bench.json).
+    ``f[ix, iy]`` lowers to a gather with batching dimensions (100-400x
+    slower there), and one giant flat take over (B, C, H, W) operands
+    materializes multi-GB s32 index tensors (a 27.5 GB request at the
+    default patch grid).
     """
     # shapes are static at trace time: refuse silently-wrapping int32 index
     # arithmetic (flat indices reach B*H*W, or B*H*W*C elements via the
@@ -289,16 +287,17 @@ def bilinear_sample_reflect_batch_packed(f: Array, x: Array, y: Array) -> Array:
     """Packed batched bilinear sampling, reflect border: ``f`` (B, H, W),
     ``x``/``y`` (B, h, w) -> (B, h, w).
 
-    TPU gather cost is index-count-bound (gather_bench,
-    battery_20260818T120920Z: fetching 5-vectors per index costs ~0.7x ONE
-    scalar per index). The classic formulation folds each of the 4 bilinear
-    taps independently (4 takes). Here the COORDINATES are reflect-folded
+    Gathers on the accelerator this was tuned for were index-count-bound
+    (fetching a 5-vector per index cost less than five scalar indices;
+    inherited tuning, not yet measured on the H100). The classic
+    formulation folds each of the 4 bilinear taps independently (4 takes). Here the COORDINATES are reflect-folded
     first (:func:`_reflect101_fold_float` — exact, the reflect-extended
     image is piecewise-linear in the folded coordinate), after which the 4
     taps are always the contiguous block (x0:x0+2, y0:y0+2): stack the 4
     shifted views channel-last and fetch each pixel's 2x2 block with ONE
     index. 4x fewer gather indices for 4x operand materialization — a
-    measured win at warp scale (chip A/B in the commit adding this).
+    win at warp scale where it was first tuned (not yet measured on the
+    H100).
     Value-parity with :func:`bilinear_sample_reflect_batch` is pinned to
     ~1e-6 in tests/test_ops.py (floating-point fold vs integer fold)."""
     H, W = f.shape[-2], f.shape[-1]
@@ -323,7 +322,7 @@ def _packed_corner_weights(xf, yf, H, W, dtype):
 def _combine_corners(g: Array, wts: Array) -> Array:
     """(..., 4, C) corner fetches x (..., 4) weights -> (..., C), as explicit
     multiply-adds (a k=4 einsum would ride the global HIGHEST dot precision
-    — multi-pass MXU work for a 4-term sum)."""
+    — multi-pass f32 matmul work for a 4-term sum)."""
     w = wts[..., None]
     return (
         g[..., 0, :] * w[..., 0, :]
@@ -335,13 +334,12 @@ def _combine_corners(g: Array, wts: Array) -> Array:
 
 def use_packed_fetch() -> bool:
     """Trace-time policy for the pyramid EXPANSION fetch: classic 4-tap
-    channel-last takes everywhere. The packed 2x2-block variant that wins
-    7.4x on the single-channel warp LOSES here — chip A/B at the production
-    flow shape (1500 half-res pairs, refine=1): taps 6.76 s vs packed
-    8.10 s. The 5-channel corner block is an 80-byte fetch per index
-    (4 corners x 5 ch x f32), past the gather width where index-count
-    savings pay (the warp's blocks are 16 bytes). PDX_FETCH_IMPL=packed
-    re-enables for A/B."""
+    channel-last takes everywhere. The packed 2x2-block variant lost to
+    taps at the production flow shape (1500 half-res pairs, refine=1) on the
+    accelerator it was first tuned for (not yet measured on the H100): the
+    5-channel corner block is an 80-byte fetch per index (4 corners x 5 ch x
+    f32), past the gather width where index-count savings paid (the warp's
+    blocks are 16 bytes). PDX_FETCH_IMPL=packed re-enables for A/B."""
     return os.environ.get("PDX_FETCH_IMPL") == "packed"
 
 
@@ -388,8 +386,7 @@ def bilinear_sample_reflect_cbatch_packed(f: Array, x: Array, y: Array) -> Array
     The packed counterpart of :func:`bilinear_sample_reflect_cbatch`: ONE
     index per output pixel fetches the contiguous (2x2, C) corner block —
     4x fewer gather indices than the 4-tap channel-last take for 4x operand
-    materialization (TPU gathers are index-count-bound; see
-    :func:`bilinear_sample_reflect_batch_packed`)."""
+    materialization (see :func:`bilinear_sample_reflect_batch_packed`)."""
     C, B, H, W = f.shape
     if H < 2 or W < 2:
         return bilinear_sample_reflect_cbatch(f, x, y)
@@ -413,7 +410,8 @@ def bilinear_sample_reflect_cbatch_packed(f: Array, x: Array, y: Array) -> Array
 
 def _warp_impl_default() -> str:
     """Batched-warp lowering policy: packed 2x2-block gather on accelerators
-    (index-count-bound gathers — 4x fewer indices), classic 4-tap on CPU
+    (4x fewer gather indices; inherited tuning from index-count-bound
+    gathers, not yet measured on the H100), classic 4-tap on CPU
     (keeps the CPU golden path bit-stable; the packed operand build costs
     real memory traffic on the single-core host). PDX_WARP_IMPL overrides."""
     impl = os.environ.get("PDX_WARP_IMPL")
@@ -441,9 +439,8 @@ def shift_periodic(f: Array, shift_x: Array | float, shift_y: Array | float) -> 
     moves image content by (+sx rows, +sy cols).
 
     Implementation: a blend of four circular rolls rather than a coordinate
-    gather — bit-equivalent bilinear result, and 120x faster under vmap on
-    TPU (measured 8 ms vs 1012 ms for 2000 x 100^2 frames; batched gathers
-    lower poorly, dynamic rolls vectorize cleanly).
+    gather — bit-equivalent bilinear result, and dynamic rolls vectorize
+    cleanly under vmap where batched gathers lower poorly.
     """
     sx = jnp.asarray(shift_x, dtype=f.dtype)
     sy = jnp.asarray(shift_y, dtype=f.dtype)
@@ -548,12 +545,12 @@ def resize_bilinear(f: Array, out_h: int, out_w: int) -> Array:
 
     The sampling grid is separable (row coord depends on row only), so the
     bilinear weights factor exactly into two 1-D interpolation matrices; on
-    accelerators the resize runs as two small matmuls (MXU) instead of four
-    2-D gathers (TPU gathers are index-arithmetic-bound — see use_mxu_sep).
+    accelerators the resize runs as two small matmuls instead of four 2-D
+    gathers (see use_banded_sep).
     """
     H, W = f.shape[-2], f.shape[-1]
     dtype = jnp.result_type(f.dtype, jnp.float32)
-    if use_mxu_sep():
+    if use_banded_sep():
         Mh = jnp.asarray(resize_matrix(H, out_h), dtype)
         Mw = jnp.asarray(resize_matrix(W, out_w), dtype)
         out = jnp.einsum("hp,...pw->...hw", Mh, f.astype(dtype), precision=_SEP_PREC)

@@ -1,8 +1,8 @@
 """Ridge / masked-ridge solves and standardization on sufficient statistics.
 
-The TPU-native shape of the reference's thousands of tiny ridge solves
+The device shape of the reference's thousands of tiny ridge solves
 (``ks2d_stridge_benchmark.py:55-60`` and every STRidge variant) is: build the
-Gram matrix G = X^T X and moment b = X^T y once (one MXU GEMM, optionally
+Gram matrix G = X^T X and moment b = X^T y once (one GEMM, optionally
 psum-reduced across a sharded sample axis), then every (hyperparameter x
 bootstrap x patch) fit is a masked (p, p) solve — vmappable to a single
 batched solve.

@@ -7,7 +7,7 @@ Savitzky-Golay temporal smoothing (window 7, poly 3) -> crop/subsample ->
 sliced 2nd-order derivatives (same start-truncation quirk as analyze) ->
 13-term library -> STRidge -> equation + metrics + slide-data artifacts.
 
-TPU-native: the reference smooths the time series pixel-by-pixel in a Python
+Batched: the reference smooths the time series pixel-by-pixel in a Python
 list comprehension over H*W pixels (:369-371) — here it is one batched
 savgol pass. Both registrations and both quality metrics are batched
 device programs.
@@ -64,9 +64,10 @@ def dis_register_sequence(U: jnp.ndarray, *, warp_sign: float = 1.0) -> jnp.ndar
     """Sequential warp-to-previous DIS registration with 11x11/sigma-2 flow
     smoothing (pde_discovery_improved_registration.py:107-145).
 
-    Host-chained jitted per-frame programs (not lax.scan) — TPU lowers the
-    patch-gather-heavy DIS program far slower inside scan (see
-    farneback_register_sequence). Frame selection is a dynamic index inside
+    Host-chained jitted per-frame programs (not lax.scan): the
+    patch-gather-heavy DIS program lowered far slower inside scan on the
+    accelerator it was first tuned for (inherited tuning, not yet measured
+    on the H100). Frame selection is a dynamic index inside
     the module-level jitted step; warp_sign enters as a runtime scalar (a
     per-call jit closure retraced on every pipeline run)."""
     from pdx.register.farneback import stack_frames, _first_frame

@@ -1,4 +1,4 @@
-"""pdx.register — TPU-native image registration stack (L2).
+"""pdx.register — device image registration stack (L2).
 
 Device-side replacements for the reference's OpenCV C++ primitives:
 phase-correlation translation estimation (cv2.phaseCorrelate), dense

@@ -1,6 +1,6 @@
 """Dense Inverse Search (DIS) optical flow — pure JAX.
 
-TPU-native replacement for cv2.DISOpticalFlow (PRESET_MEDIUM) as used by
+Device replacement for cv2.DISOpticalFlow (PRESET_MEDIUM) as used by
 ``register_dis_improved`` (pde_discovery_improved_registration.py:107-145).
 
 Algorithm (Kroeger et al., "Fast Optical Flow using Dense Inverse Search",

@@ -1,6 +1,6 @@
 """ECC (Enhanced Correlation Coefficient) parametric registration — pure JAX.
 
-TPU-native replacement for cv2.findTransformECC with MOTION_EUCLIDEAN /
+Device replacement for cv2.findTransformECC with MOTION_EUCLIDEAN /
 MOTION_TRANSLATION as used by the per-patch registration in
 ``patch_based_sindy.py:171-196``.
 

@@ -26,7 +26,8 @@ def mean_flow_magnitude(U: Array, **flow_kwargs) -> Array:
     flow_static = tuple(sorted(kwargs.items()))
     # flat-gather-batched pyramid programs, chunked to bound HBM temps
     # (farneback.batched_pair_flows; the vmap-style batched gather lowered
-    # pathologically on TPU, the one-giant-program form spilled)
+    # pathologically where this was first tuned, the one-giant-program form
+    # spilled)
     a, b = _seq_pairs(U)
     fx, fy = batched_pair_flows(a, b, flow_static=flow_static)
     return _mag_mean(fx, fy)

@@ -1,6 +1,6 @@
 """TV-L1 optical flow (Zach, Pock & Bischof 2007) — pure JAX.
 
-TPU-native equivalent of cv2.optflow.DualTVL1OpticalFlow, the notebook-only
+Device equivalent of cv2.optflow.DualTVL1OpticalFlow, the notebook-only
 third flow backend of the reference (notebook 02 cell 10,
 ``compute_optical_flow(method='tvl1')``).
 

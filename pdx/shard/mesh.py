@@ -6,8 +6,8 @@ hyperparameter grid points (embarrassingly parallel batched solves, sharded
 over the mesh), and frames (batched FFT/stencil evaluation).
 
 Everything reaches XLA collectives implicitly through jit + NamedSharding /
-shard_map — no hand-rolled communication backend, per the TPU-native recipe:
-pick a mesh, annotate shardings, let XLA insert the psum/all-gathers over ICI.
+shard_map — no hand-rolled communication backend: pick a 1-D mesh, annotate
+shardings, and let XLA insert the psum/all-gathers (NCCL over NVLink on GPUs).
 """
 
 from __future__ import annotations
@@ -19,6 +19,10 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from pdx.ops.linalg import gram_stats
+
+_STAT_KEYS = ("G", "b", "sx", "n", "syy", "sy")
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
@@ -65,8 +69,9 @@ def sharded_gram_stats(
 ) -> dict[str, Array]:
     """Gram sufficient statistics with the sample axis sharded over the mesh.
 
-    Each device computes its local X_i^T X_i / X_i^T y_i on the MXU; one psum
-    over ICI produces the replicated (p, p)/(p,) stats. This is the
+    Each device computes its local statistics with :func:`gram_stats`; one
+    psum per statistic (an NCCL all-reduce over NVLink on GPUs) produces the
+    replicated (p, p)/(p,) stats. This is the
     multi-chip form of :func:`pdx.ops.linalg.gram_stats` — the only
     cross-device communication the regression stack needs, O(p^2) bytes.
 
@@ -74,7 +79,6 @@ def sharded_gram_stats(
     with EXACT statistics (padding rows contribute nothing, including to the
     row count n).
     """
-    p = X.shape[1]
     if weights is None:
         weights = jnp.ones((X.shape[0],), dtype=X.dtype)
 
@@ -85,15 +89,7 @@ def sharded_gram_stats(
         out_specs=(P(), P(), P(), P(), P(), P()),
     )
     def local_stats(Xl, yl, wl):
-        Xw = Xl * wl[:, None]
-        yw = yl * wl
-        G = jax.lax.psum(Xl.T @ Xw, axis_name)
-        b = jax.lax.psum(Xl.T @ yw, axis_name)
-        sx = jax.lax.psum(jnp.sum(Xw, axis=0), axis_name)
-        n = jax.lax.psum(jnp.sum(wl), axis_name)
-        syy = jax.lax.psum(jnp.sum(yl * yw), axis_name)
-        sy = jax.lax.psum(jnp.sum(yw), axis_name)
-        return G, b, sx, n, syy, sy
+        s = gram_stats(Xl, yl, wl)
+        return tuple(jax.lax.psum(s[k], axis_name) for k in _STAT_KEYS)
 
-    G, b, sx, n, syy, sy = local_stats(X, y, weights)
-    return {"G": G, "b": b, "sx": sx, "n": n, "syy": syy, "sy": sy}
+    return dict(zip(_STAT_KEYS, local_stats(X, y, weights)))

@@ -7,7 +7,7 @@ Parity targets:
     ``ks2d_stridge_benchmark.py:751-782`` (SimConfig / simulate / ks_rhs);
   * integrating-factor pseudo-spectral stepper: notebook 08 cell 0.
 
-TPU-first design: the time loop is a single ``lax.scan`` compiled once; frames
+Design: the time loop is a single ``lax.scan`` compiled once; frames
 are emitted from the scan (no host round-trips). The initial condition is
 drawn on the host with numpy's Philox-free default_rng to preserve bit-exact
 parity with the reference's ``default_rng(seed).uniform``.
@@ -130,7 +130,7 @@ def simulate_ks2d_spectral(
 
     The stiff 4th-order linear operator is handled exactly, so dt can be much
     larger than the explicit Euler stepper tolerates — this is the preferred
-    generator for long trajectories on TPU.
+    generator for long trajectories.
     """
     dtype = dtype or jnp.result_type(float)
     if u0 is None:

@@ -9,7 +9,7 @@ Algorithm parity (ks2d_stridge_benchmark.py):
   * ensemble_stridge                     :603-644
   * robust_stridge                       :647-748
 
-TPU-native formulation: every variant is the same masked threshold loop as
+Batched formulation: every variant is the same masked threshold loop as
 :mod:`pdx.solve.stridge` with a pluggable masked inner solver; bootstrap
 members are gathered subsample matrices vmapped over the member axis, so a
 30-50 member ensemble is one batched dispatch. Bootstrap index sets are drawn

@@ -8,7 +8,7 @@ Algorithm parity: ``stridge`` (ks2d_stridge_benchmark.py:404-428):
      refit ridge on the surviving support;
   4. unscale by /(scale + 1e-12).
 
-TPU-native formulation: the data matrix is touched exactly once to build the
+Batched formulation: the data matrix is touched exactly once to build the
 sufficient statistics (G = X^T X, b = X^T y, column sums); standardization is
 a linear transform of those stats; each threshold iteration is a masked
 (p, p) solve with static shapes (inactive rows become identity rows). The

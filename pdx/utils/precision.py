@@ -1,9 +1,10 @@
 """Precision resolution: make 'float64' requests behave sensibly per backend.
 
-TPU has no native f64; CPU supports it behind jax_enable_x64. When a pipeline
-config asks for float64: on CPU, enable x64 (parity mode); on TPU, fall back
-to float32 loudly once (the TPU path compensates with HIGHEST matmul
-precision, see pdx/__init__.py).
+When a pipeline config asks for float64: on the CPU, enable x64 (parity
+mode); on an accelerator without x64 enabled, fall back to float32 loudly
+once (that path compensates with HIGHEST matmul precision, see
+pdx/__init__.py). The GPU computes float64 natively; honouring it there is a
+ROADMAP item, kept apart so the float32 path is what gets measured.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def resolve_dtype(dtype_str: str) -> jnp.dtype:
         elif not jax.config.jax_enable_x64:
             if not _warned:
                 warnings.warn(
-                    "float64 requested but backend is TPU: using float32 "
+                    f"float64 requested on the {jax.default_backend()} backend: using float32 "
                     "(Gram accumulation runs at HIGHEST matmul precision)."
                 )
                 _warned = True

@@ -241,9 +241,8 @@ class TestInterp:
         assert np.isclose(got[0, 2], f[6, 7])  # 8 -> 6, 9 -> 7
 
     def test_batched_samplers_match_unbatched(self):
-        # pins the batched-gather lowering (flat take / channel-last take,
-        # rewired to the chip-measured winners in gather_bench
-        # battery_20260818T120920Z) against the per-element unbatched path
+        # pins the batched-gather lowering (flat take / channel-last take)
+        # against the per-element unbatched path
         from pdx.ops.interp import (
             bilinear_sample_reflect_batch,
             bilinear_sample_reflect_cbatch,

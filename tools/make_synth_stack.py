@@ -3,10 +3,11 @@
 The reference's 51 laser-matter TIFFs don't ship; this produces a stack with
 the same shape contract (51 frames, ~1024x1280, uint16, sorted *.tif names)
 and smooth advecting-diffusing dynamics a PDE fit can capture, so both the
-reference scripts (CPU) and the pdx pipelines (TPU) can be timed on
+reference scripts (CPU) and the pdx pipelines (GPU) can be timed on
 identical inputs.
 
-Usage: python tools/make_synth_stack.py OUT_DIR [T] [H] [W]
+Usage: python tools/make_synth_stack.py [OUT_DIR] [T] [H] [W]
+(OUT_DIR defaults to outputs/synth51 in the repository.)
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ def make_stack(T: int = 51, H: int = 1024, W: int = 1280, seed: int = 0) -> np.n
 
 
 def main() -> None:
-    out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path("/tmp/synth51")
+    out = (
+        Path(sys.argv[1]) if len(sys.argv) > 1
+        else Path(__file__).resolve().parent.parent / "outputs" / "synth51"
+    )
     T = int(sys.argv[2]) if len(sys.argv) > 2 else 51
     H = int(sys.argv[3]) if len(sys.argv) > 3 else 1024
     W = int(sys.argv[4]) if len(sys.argv) > 4 else 1280
